@@ -2,14 +2,14 @@
 //
 // The reference's host-side IO/runtime is C++ (OpenCV imread/cvtColor at
 // src/Tracking.cpp:56-70 and cv::FileStorage loading); this is the
-// TPU-engine equivalent: a dependency-free decoder for PGM/PPM (binary and
+// engine's equivalent: a dependency-free decoder for PGM/PPM (binary and
 // ascii netpbm — the format TUM/KITTI tooling readily converts to) with
 // RGB->grayscale conversion, plus a producer/consumer prefetch queue that
 // decodes ahead of the SLAM loop on a thread pool so the accelerator never
 // waits on disk.
 //
 // Exposed as a plain C ABI consumed via ctypes
-// (orbslam_in_practice_tpu/io/native_loader.py).
+// (orbslam_in_practice/io/native_loader.py).
 
 #include <atomic>
 #include <condition_variable>

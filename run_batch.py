@@ -26,7 +26,7 @@ def kf_only_ate(smap, gt_positions, gt_ids=None) -> float:
     relative transforms recorded at TRACK time (as ORB-SLAM's trajectory
     export does); those stale relative legs can mask a genuine keyframe
     refinement, so GBA improvement is judged on the keyframes."""
-    from orbslam_in_practice_tpu.io.evaluation import ate_rmse
+    from orbslam_in_practice.io.evaluation import ate_rmse
 
     est = []
     kfp = smap.hview("kf_pose")
@@ -39,9 +39,9 @@ def kf_only_ate(smap, gt_positions, gt_ids=None) -> float:
 
 
 def run_sequence(cfg, frames, gt_positions, gt_ids, mesh, out_prefix):
-    from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-    from orbslam_in_practice_tpu.parallel.dist_ba import distributed_global_ba
-    from orbslam_in_practice_tpu.system import SlamSystem
+    from orbslam_in_practice.io.evaluation import ate_rmse
+    from orbslam_in_practice.parallel.dist_ba import distributed_global_ba
+    from orbslam_in_practice.system import SlamSystem
 
     system = SlamSystem(cfg)
     t0 = time.perf_counter()
@@ -95,15 +95,19 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-    from orbslam_in_practice_tpu.config import SlamConfig, load_config
-    from orbslam_in_practice_tpu.parallel.mesh import make_mesh
+    from orbslam_in_practice.utils import runtime
 
-    mesh = make_mesh(args.mesh) if args.mesh and len(jax.devices()) >= args.mesh else None
+    runtime.setup()
+    from orbslam_in_practice.config import SlamConfig, load_config
+    from orbslam_in_practice.parallel.mesh import make_mesh
+
+    if args.mesh > len(jax.devices()):
+        ap.error(f"--mesh {args.mesh} needs {args.mesh} devices, found {len(jax.devices())}")
+    mesh = make_mesh(args.mesh) if args.mesh else None
     results = {}
 
     if args.synthetic:
-        from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
+        from orbslam_in_practice.io.synthetic import SyntheticSequence
 
         for i in range(args.synthetic):
             seq = SyntheticSequence(n_frames=args.frames, seed=10 + i)
@@ -113,7 +117,7 @@ def main():
                 cfg, frames, seq.gt_centers(), None, mesh, f"batch_syn{i}"
             )
 
-    from orbslam_in_practice_tpu.io import datasets
+    from orbslam_in_practice.io import datasets
 
     for path in args.euroc:
         ds = datasets.load_euroc(path)

@@ -37,20 +37,19 @@ def main():
     )
     args = ap.parse_args()
 
-    import jax
+    from orbslam_in_practice.utils import runtime
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    from orbslam_in_practice_tpu.config import SlamConfig, load_config
-    from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-    from orbslam_in_practice_tpu.system import SlamSystem
-    from orbslam_in_practice_tpu.utils.logging import FrameLog, StageTimer
+    runtime.setup()
+    from orbslam_in_practice.config import SlamConfig, load_config
+    from orbslam_in_practice.io.evaluation import ate_rmse
+    from orbslam_in_practice.system import SlamSystem
+    from orbslam_in_practice.utils.logging import FrameLog, StageTimer
 
     gt_positions = None
     gt_frame_ids = None
 
     if args.synthetic:
-        from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
+        from orbslam_in_practice.io.synthetic import SyntheticSequence
 
         n = args.frames or 60
         seq = SyntheticSequence(n_frames=n)
@@ -58,7 +57,7 @@ def main():
         frames = ((i * 0.1, seq.render(i)) for i in range(n))
         gt_positions = seq.gt_centers()
     else:
-        from orbslam_in_practice_tpu.io import datasets
+        from orbslam_in_practice.io import datasets
 
         if args.tum:
             ds = datasets.load_tum(args.tum)
@@ -116,7 +115,7 @@ def main():
     if args.viz:
         import numpy as np
 
-        from orbslam_in_practice_tpu.utils.viewer import render_map
+        from orbslam_in_practice.utils.viewer import render_map
 
         centers = [
             -(T[:3, :3].T @ T[:3, 3])

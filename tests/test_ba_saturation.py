@@ -11,16 +11,16 @@ Contract under test:
      scan order — and BA still converges on what remains.
 
 Reference: g2o never drops edges (/root/reference/src/Optimizer.cpp:64-122);
-the fixed-shape TPU formulation must earn that semantics via adaptivity.
+the fixed-shape formulation must earn that semantics via adaptivity.
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-import orbslam_in_practice_tpu.slam.local_mapping as lm_mod
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.slam.local_mapping import LocalMapper
-from orbslam_in_practice_tpu.slam.map import SlamMap
+import orbslam_in_practice.slam.local_mapping as lm_mod
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.slam.local_mapping import LocalMapper
+from orbslam_in_practice.slam.map import SlamMap
 
 N_FEAT = 64
 N_LM = 40

@@ -26,8 +26,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from run_batch import run_sequence  # noqa: E402
 
-from orbslam_in_practice_tpu.config import SlamConfig  # noqa: E402
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence  # noqa: E402
+from orbslam_in_practice.config import SlamConfig  # noqa: E402
+from orbslam_in_practice.io.synthetic import SyntheticSequence  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -72,3 +72,18 @@ def test_batch_workflow_two_sequences(tmp_path, mesh):
         # artifacts written (map + trajectory, the config-5 deliverables)
         assert (tmp_path / f"syn{i}_map.npz").exists()
         assert (tmp_path / f"syn{i}_traj.txt").exists()
+
+
+def test_run_batch_refuses_mesh_beyond_devices(monkeypatch, capsys):
+    """--mesh larger than the device count is an error, not a silent run
+    without distributed global BA."""
+    import jax
+
+    import run_batch
+
+    n = len(jax.devices()) * 2
+    monkeypatch.setattr(sys, "argv", ["run_batch.py", "--mesh", str(n)])
+    with pytest.raises(SystemExit) as exc:
+        run_batch.main()
+    assert exc.value.code != 0
+    assert f"--mesh {n}" in capsys.readouterr().err

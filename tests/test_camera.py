@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import camera
+from orbslam_in_practice.geometry import camera
 
 K = jnp.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], dtype=jnp.float32)
 DIST = jnp.array([-0.28, 0.07, 1e-4, -2e-5, 0.0], dtype=jnp.float32)  # TUM1-like

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from orbslam_in_practice_tpu.geometry import se3
-from orbslam_in_practice_tpu.optim.ba import bundle_adjustment
-from orbslam_in_practice_tpu.parallel.dist_ba import (
+from orbslam_in_practice.geometry import se3
+from orbslam_in_practice.optim.ba import bundle_adjustment
+from orbslam_in_practice.parallel.dist_ba import (
     dist_bundle_adjustment,
     partition_ba_problem,
 )
@@ -96,8 +96,8 @@ def test_distributed_global_ba_on_map(rng, mesh):
     sharded global BA, verify it converges back (BASELINE.json config 5)."""
     import jax.numpy as jnp
 
-    from orbslam_in_practice_tpu.parallel.dist_ba import distributed_global_ba
-    from orbslam_in_practice_tpu.slam.map import SlamMap
+    from orbslam_in_practice.parallel.dist_ba import distributed_global_ba
+    from orbslam_in_practice.slam.map import SlamMap
 
     n_kf, n_lm, n_feat = 6, 200, 256
     smap = SlamMap(k_max=8, l_max=512, f_max=n_feat)

@@ -10,11 +10,11 @@ full pipeline, not just by the unit-level invertibility test.
 import numpy as np
 import pytest
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu.slam.tracking import TrackingState
-from orbslam_in_practice_tpu.system import SlamSystem
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.io.evaluation import ate_rmse
+from orbslam_in_practice.io.synthetic import SyntheticSequence
+from orbslam_in_practice.slam.tracking import TrackingState
+from orbslam_in_practice.system import SlamSystem
 
 # TUM1.yaml-style radtan coefficients (same magnitudes as
 # configs/TUM1.yaml: strong barrel k1/k2/k3, small tangential terms)

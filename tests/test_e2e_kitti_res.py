@@ -8,16 +8,16 @@ low-parallax triangulations fail the 4-sigma^2 reprojection gate)."""
 
 import pytest
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu.slam.tracking import TrackingState
-from orbslam_in_practice_tpu.system import SlamSystem
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.io.evaluation import ate_rmse
+from orbslam_in_practice.io.synthetic import SyntheticSequence
+from orbslam_in_practice.slam.tracking import TrackingState
+from orbslam_in_practice.system import SlamSystem
 
 
 @pytest.mark.slow
 def test_e2e_kitti_resolution():
-    from orbslam_in_practice_tpu.io.synthetic import make_trajectory
+    from orbslam_in_practice.io.synthetic import make_trajectory
 
     seq = SyntheticSequence(
         n_frames=25,

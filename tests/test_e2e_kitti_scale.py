@@ -11,12 +11,10 @@ PRODUCTION budgets k_max=256 / l_max=16384 (SlamConfig defaults). Slot
 recycling (keyframe AND pressure-driven landmark eviction), the
 covisibility vote, and keyframe culling all scale with K and L here.
 
-Round-4 measured reference points (TPU probe, tools/kitti_scale_probe.py,
-KITTI500_r04.json): tracked_fraction 0.974 (six 1-frame blips, each
-recovered by relocalization within a frame), ATE 0.49% of the 60 m path
-without loop closure. Gates are set with ~2-3x headroom against those
-measurements (VERDICT r3 next #8: margins must survive fp-scheduling
-differences across machines).
+Gates are set with ~2-3x headroom against what the probe
+(tools/kitti_scale_probe.py) measured on this run (VERDICT r3 next #8:
+margins must survive fp-scheduling differences across machines); a tracking
+loss must be a short blip that relocalization recovers.
 
 Reference intent: the per-frame pipeline surviving full sequences
 (/root/reference/src/Tracking.cpp:84-155) and unbounded map growth
@@ -61,12 +59,13 @@ def test_e2e_kitti_turn_regime():
     denser, and easier, than the production run they stood in for).
 
     160 frames at ~6.7 s/frame CPU ~= 18 min; the full 500-frame pass is
-    test_e2e_kitti_production_500 below (opt-in: ~1-2 h on this 2-core
-    host) and the standing TPU artifact KITTI500_r04.json."""
+    test_e2e_kitti_production_500 below (opt-in: ~1-2 h on a 2-core
+    host). chip_smoke.py runs these 160 frames with the same gates on
+    the GPU."""
     seq, cfg = build(500)  # production world
-    from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-    from orbslam_in_practice_tpu.slam.tracking import TrackingState
-    from orbslam_in_practice_tpu.system import SlamSystem
+    from orbslam_in_practice.io.evaluation import ate_rmse
+    from orbslam_in_practice.slam.tracking import TrackingState
+    from orbslam_in_practice.system import SlamSystem
     import numpy as np
 
     system = SlamSystem(cfg)
@@ -94,15 +93,14 @@ def test_e2e_kitti_turn_regime():
 @pytest.mark.skipif(
     not os.environ.get("RUN_PRODUCTION_E2E"),
     reason="full 500-frame production run: ~1-2 h on a 2-core CPU host; "
-    "set RUN_PRODUCTION_E2E=1 (the TPU probe artifact KITTI500_r04.json "
-    "records the same run on the chip: tracked 0.974, ATE 0.49% of path)",
+    "set RUN_PRODUCTION_E2E=1",
 )
 def test_e2e_kitti_production_500():
     result, system = run(n_frames=500, n_features=2000, seed=3)
     _common_gates(result)
     assert result["tracked_fraction"] > 0.9, result["tracked_fraction"]
     # monocular drift without loop closure, Sim3-aligned, relative to the
-    # driven path (TPU probe measured 0.49%)
+    # driven path
     assert result["ate_pct_of_path"] < 1.5, result
     assert result["n_aligned"] > 450
     # the map actually grew into the production tables and recycling ran
@@ -114,11 +112,9 @@ def test_e2e_kitti_production_500():
 @pytest.mark.skipif(
     not os.environ.get("RUN_PRODUCTION_E2E"),
     reason="production-budget loop circuit: ~1-2 h on a 2-core CPU host; "
-    "set RUN_PRODUCTION_E2E=1 (the TPU artifact KITTI_LOOP_r05.json "
-    "records the same run on the chip: 1 Sim3 closure, ATE 1.16 -> 0.67 m "
-    "at the closure, final 0.42% of the 203 m path)",
+    "set RUN_PRODUCTION_E2E=1",
 )
-def test_e2e_kitti_loop_production():
+def test_e2e_kitti_loop_production(tmp_path):
     """BASELINE config 4 at production budgets (VERDICT r4 next #3):
     the kitti_loop circuit with realistic mono drift (noise 4, jitter
     0.15); >= 1 Sim3 closure on the revisit leg, the closure reduces
@@ -131,7 +127,7 @@ def test_e2e_kitti_loop_production():
         [
             sys.executable, "tools/kitti_loop_probe.py", "--cpu",
             "--frames", "580", "--step", "0.35",
-            "--json-out", "/tmp/kitti_loop_ci.json",
+            "--json-out", str(tmp_path / "kitti_loop.json"),
         ],
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         capture_output=True, text=True, timeout=3600 * 3,

@@ -19,11 +19,11 @@ never runs (/root/reference/src/Sim3Solver.cpp:7-69).
 import numpy as np
 import pytest
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu.slam.tracking import TrackingState
-from orbslam_in_practice_tpu.system import SlamSystem
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.io.evaluation import ate_rmse
+from orbslam_in_practice.io.synthetic import SyntheticSequence
+from orbslam_in_practice.slam.tracking import TrackingState
+from orbslam_in_practice.system import SlamSystem
 
 K_MAX = 48
 L_MAX = 4096

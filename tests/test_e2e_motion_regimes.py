@@ -10,11 +10,11 @@ never demonstrate this (not runnable), so these are the capability tests.
 
 import pytest
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu.slam.tracking import TrackingState
-from orbslam_in_practice_tpu.system import SlamSystem
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.io.evaluation import ate_rmse
+from orbslam_in_practice.io.synthetic import SyntheticSequence
+from orbslam_in_practice.slam.tracking import TrackingState
+from orbslam_in_practice.system import SlamSystem
 
 
 def _config(n_features=1000):

@@ -17,11 +17,11 @@ import os
 import numpy as np
 import pytest
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.io import datasets
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
-from orbslam_in_practice_tpu.io.synthetic import SyntheticSequence
-from orbslam_in_practice_tpu.system import SlamSystem
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.io import datasets
+from orbslam_in_practice.io.evaluation import ate_rmse
+from orbslam_in_practice.io.synthetic import SyntheticSequence
+from orbslam_in_practice.system import SlamSystem
 
 N_FRAMES = 20
 

@@ -4,11 +4,11 @@ on synthetic imagery (SURVEY.md §4: unit goldens + component integration)."""
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.frontend.matcher import search_for_initialization
-from orbslam_in_practice_tpu.frontend.orb import ORBExtractor
-from orbslam_in_practice_tpu.ops import fast, hamming
-from orbslam_in_practice_tpu.ops.orb import select_keypoints
-from orbslam_in_practice_tpu.ops.orb_pattern import ORB_PATTERN
+from orbslam_in_practice.frontend.matcher import search_for_initialization
+from orbslam_in_practice.frontend.orb import ORBExtractor
+from orbslam_in_practice.ops import fast, hamming
+from orbslam_in_practice.ops.orb import select_keypoints
+from orbslam_in_practice.ops.orb_pattern import ORB_PATTERN
 
 
 def render_dots(rng, h=240, w=320, n=60, seed_shift=(0, 0)):
@@ -40,6 +40,27 @@ def test_fast_score_matches_golden(rng):
         got = score > th
         want = fast.fast_corners_np(img, th)
         assert np.array_equal(got, want)
+
+
+def test_fast_nms_matches_golden_kitti_size(rng):
+    """FAST + 3x3 NMS at KITTI's 1241x376 against the slow golden models,
+    on full-width bands at the top, middle and bottom (the golden takes
+    ~0.1 s per row): corners at both thresholds, then non-max suppression
+    against a plain numpy 3x3 maximum over the whole image."""
+    h, w = 376, 1241
+    img = rng.uniform(0, 255, size=(h, w)).astype(np.float32)
+    score = np.asarray(fast.fast_score(jnp.asarray(img)))
+    for a, b in ((0, 12), (182, 194), (h - 12, h)):
+        lo, hi = max(a - 3, 0), min(b + 3, h)
+        for th in (20.0, 7.0):
+            want = fast.fast_corners_np(img[lo:hi], th)[a - lo : a - lo + b - a]
+            assert np.array_equal(score[a:b] > th, want), (a, th)
+    padded = np.pad(score, 1, constant_values=-np.inf)
+    pooled = np.max(
+        [padded[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)], axis=0
+    )
+    want = np.where(score >= pooled, score, 0.0)
+    assert np.array_equal(np.asarray(fast.nms3x3(jnp.asarray(score))), want)
 
 
 def test_nms_keeps_local_maxima():

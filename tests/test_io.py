@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from orbslam_in_practice_tpu.config import load_config
-from orbslam_in_practice_tpu.io import datasets
-from orbslam_in_practice_tpu.io.evaluation import ate_rmse
+from orbslam_in_practice.config import load_config
+from orbslam_in_practice.io import datasets
+from orbslam_in_practice.io.evaluation import ate_rmse
 
 
 def test_load_config_orbslam_schema(tmp_path):
@@ -126,7 +126,7 @@ def test_euroc_loader(tmp_path, rng):
 def test_ate_rmse_known_alignment(rng):
     # trajectory = gt under a Sim3: perfect alignment -> ~0 RMSE
     gt = rng.normal(size=(30, 3)).astype(np.float32)
-    from orbslam_in_practice_tpu.geometry import se3
+    from orbslam_in_practice.geometry import se3
     import jax.numpy as jnp
 
     R = np.asarray(se3.exp_so3(jnp.asarray([0.1, 0.2, 0.3], dtype=jnp.float32)))
@@ -145,9 +145,9 @@ def test_viewer_renders_map_and_frame(tmp_path, rng):
     """Offline viewer (MapDrawer/FrameDrawer role — absent in the reference)."""
     import jax.numpy as jnp
 
-    from orbslam_in_practice_tpu.frontend.orb import ORBExtractor
-    from orbslam_in_practice_tpu.slam.map import SlamMap
-    from orbslam_in_practice_tpu.utils.viewer import render_frame, render_map
+    from orbslam_in_practice.frontend.orb import ORBExtractor
+    from orbslam_in_practice.slam.map import SlamMap
+    from orbslam_in_practice.utils.viewer import render_frame, render_map
 
     img = jnp.asarray(rng.uniform(0, 255, (96, 128)).astype(np.float32))
     ext = ORBExtractor(64, 1.2, 2, 20.0, 7.0)

@@ -9,7 +9,7 @@ NeedNewKeyFrame criteria (the reference left the decision absent,
 
 import numpy as np
 
-from orbslam_in_practice_tpu.slam.tracking import Tracking
+from orbslam_in_practice.slam.tracking import Tracking
 
 
 class _StubMap:

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.geometry import se3, sim3_lie
-from orbslam_in_practice_tpu.slam.loop_closing import LoopCloser, _sim3_ransac
-from orbslam_in_practice_tpu.slam.map import SlamMap
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.geometry import se3, sim3_lie
+from orbslam_in_practice.slam.loop_closing import LoopCloser, _sim3_ransac
+from orbslam_in_practice.slam.map import SlamMap
 
 
 def test_sim3_ransac_with_outliers(rng):
@@ -200,7 +200,7 @@ def _aligned_rmse(smap, true_poses, n):
     """Sim3-aligned RMSE of KF centers vs truth (monocular scale gauge is
     free after global BA with a single fixed camera, so absolute comparison
     is the wrong metric)."""
-    from orbslam_in_practice_tpu.geometry.sim3 import horn_sim3
+    from orbslam_in_practice.geometry.sim3 import horn_sim3
 
     est = np.stack(
         [

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.slam.map import SlamMap
+from orbslam_in_practice.slam.map import SlamMap
 
 
 class FakeFrame:
@@ -295,8 +295,8 @@ def test_local_map_cap_is_counted_and_strength_ordered(rng):
     """When the K1 local-map vote exceeds LOCAL_MAP_MAX, the STRONGEST
     landmarks (by observation count) are kept and the clip is counted
     (VERDICT r4 weak #3 — was slot-order, silent)."""
-    from orbslam_in_practice_tpu.config import SlamConfig
-    from orbslam_in_practice_tpu.slam.tracking import LOCAL_MAP_MAX, Tracking
+    from orbslam_in_practice.config import SlamConfig
+    from orbslam_in_practice.slam.tracking import LOCAL_MAP_MAX, Tracking
 
     cfg = SlamConfig(n_features=64, k_max=8, l_max=8192)
     tr = Tracking(cfg)

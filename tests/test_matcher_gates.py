@@ -4,12 +4,12 @@ frustum gates in projection search."""
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.frontend.frame import Frame
-from orbslam_in_practice_tpu.frontend.matcher import (
+from orbslam_in_practice.frontend.frame import Frame
+from orbslam_in_practice.frontend.matcher import (
     _rotation_consistency,
     search_by_projection,
 )
-from orbslam_in_practice_tpu.ops.hamming import unpack_to_pm1
+from orbslam_in_practice.ops.hamming import unpack_to_pm1
 
 
 def test_rotation_consistency_keeps_dominant_bins(rng):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from orbslam_in_practice_tpu.io import native_loader
+from orbslam_in_practice.io import native_loader
 
 
 def write_pgm(path, img, binary=True):

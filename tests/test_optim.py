@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import se3
-from orbslam_in_practice_tpu.optim.ba import BAProblem, build_point_obs, bundle_adjustment
-from orbslam_in_practice_tpu.optim.pose_opt import pose_optimization
+from orbslam_in_practice.geometry import se3
+from orbslam_in_practice.optim.ba import BAProblem, build_point_obs, bundle_adjustment
+from orbslam_in_practice.optim.pose_opt import pose_optimization
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], dtype=np.float32)
 
@@ -214,7 +214,7 @@ def test_ba_obs_overflow_consistent(rng):
     Regression for the round-2 verdict: Hcc/b_c summed ALL observations
     while Hpp/b_p/W only saw the first O_max — the halves disagreed for any
     landmark with more than O_max observations."""
-    from orbslam_in_practice_tpu.optim.ba import (
+    from orbslam_in_practice.optim.ba import (
         adaptive_o_max,
         count_obs_drops,
         included_obs_mask,
@@ -292,7 +292,7 @@ def test_schur_chunked_matches_dense():
     global-BA shapes) must agree with the dense one-hot path."""
     import numpy as np
 
-    from orbslam_in_practice_tpu.optim import ba as ba_mod
+    from orbslam_in_practice.optim import ba as ba_mod
 
     rng = np.random.default_rng(7)
     L, O, K = 37, 5, 9  # odd sizes exercise chunk padding

@@ -13,10 +13,10 @@ one of them.
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.frontend.frame import Frame
-from orbslam_in_practice_tpu.slam.loop_closing import LoopCloser
-from orbslam_in_practice_tpu.slam.map import SlamMap
+from orbslam_in_practice.config import SlamConfig
+from orbslam_in_practice.frontend.frame import Frame
+from orbslam_in_practice.slam.loop_closing import LoopCloser
+from orbslam_in_practice.slam.map import SlamMap
 
 N_FEAT = 128
 N_LM = 100

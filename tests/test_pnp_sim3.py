@@ -2,9 +2,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import se3
-from orbslam_in_practice_tpu.geometry.epnp import epnp
-from orbslam_in_practice_tpu.geometry.sim3 import horn_sim3
+from orbslam_in_practice.geometry import se3
+from orbslam_in_practice.geometry.epnp import epnp
+from orbslam_in_practice.geometry.sim3 import horn_sim3
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], dtype=np.float32)
 

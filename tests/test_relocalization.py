@@ -9,9 +9,9 @@ passes — a single ambiguous retrieval must not kill recovery.
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.frontend.frame import Frame
-from orbslam_in_practice_tpu.slam.map import SlamMap
-from orbslam_in_practice_tpu.slam.relocalization import relocalize
+from orbslam_in_practice.frontend.frame import Frame
+from orbslam_in_practice.slam.map import SlamMap
+from orbslam_in_practice.slam.relocalization import relocalize
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], np.float32)
 N_FEAT = 64

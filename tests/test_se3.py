@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import se3
+from orbslam_in_practice.geometry import se3
 
 
 def random_rotation(rng, n=()):

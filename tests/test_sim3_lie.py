@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import sim3_lie
+from orbslam_in_practice.geometry import sim3_lie
 
 
 def test_exp_log_sim3_roundtrip(rng):
@@ -18,7 +18,7 @@ def test_exp_sim3_zero_is_identity():
 
 def test_calc_W_matches_numeric_integral(rng):
     # W = int_0^1 e^(sigma u) e^(hat(phi) u) du, checked by quadrature
-    from orbslam_in_practice_tpu.geometry.se3 import exp_so3
+    from orbslam_in_practice.geometry.se3 import exp_so3
 
     for _ in range(5):
         phi = rng.normal(size=3) * 0.8
@@ -44,7 +44,7 @@ def test_sim3_inverse(rng):
 
 def test_pose_graph_closes_loop(rng):
     """Chain of poses with drift; a loop edge pulls the chain closed."""
-    from orbslam_in_practice_tpu.optim.pose_graph import optimize_pose_graph
+    from orbslam_in_practice.optim.pose_graph import optimize_pose_graph
 
     n = 10
     # ground truth: poses on a line

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from orbslam_in_practice_tpu.geometry import se3, twoview
-from orbslam_in_practice_tpu.geometry.triangulate import triangulate_dlt
+from orbslam_in_practice.geometry import se3, twoview
+from orbslam_in_practice.geometry.triangulate import triangulate_dlt
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], dtype=np.float32)
 

@@ -1,7 +1,7 @@
-"""BA MXU-precision audit (VERDICT r4 next #4).
+"""BA matmul-precision audit (VERDICT r4 next #4).
 
-pose_opt.py assembles its normal equations with precision=HIGHEST and says
-default bf16 MXU rounding "floors the achievable pose accuracy"; the
+pose_opt.py assembles its normal equations with precision=HIGHEST because
+reduced-precision matmul inputs floor the achievable pose accuracy; the
 structurally identical einsums in optim/ba.py (and parallel/dist_ba.py)
 ran at default precision. This tool MEASURES the difference on the real
 device: final cost / pose error / point error / per-iteration time of
@@ -23,11 +23,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from orbslam_in_practice.utils import runtime
 
-from orbslam_in_practice_tpu.optim import ba as ba_mod
-from orbslam_in_practice_tpu.optim.ba import bundle_adjustment
+runtime.setup()
+
+from orbslam_in_practice.optim import ba as ba_mod
+from orbslam_in_practice.optim.ba import bundle_adjustment
 from tools.bench_ba import make_problem
 
 

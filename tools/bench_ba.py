@@ -3,8 +3,8 @@ metric: "Local-BA ms/iter at kernel speed-of-light per chip").
 
 Builds a realistic local-BA window (like local_mapping's: W keyframes, the
 landmarks they see, ~F observations per KF), times bundle_adjustment per LM
-iteration on the device (batched-input chained methodology — see
-BENCH_NOTES.md), and compares with the XLA cost-analysis roofline.
+iteration on the device (batched-input chained methodology, as bench.py),
+and compares with the XLA cost-analysis roofline.
 """
 
 from __future__ import annotations
@@ -19,11 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from orbslam_in_practice.utils import runtime
 
-from orbslam_in_practice_tpu.optim.ba import BAProblem, build_point_obs, bundle_adjustment
-from orbslam_in_practice_tpu.utils.profiling import speed_of_light_report
+runtime.setup()
+
+from orbslam_in_practice.optim.ba import BAProblem, build_point_obs, bundle_adjustment
+from orbslam_in_practice.utils.profiling import speed_of_light_report
 
 
 def make_problem(n_cams=6, n_pts=800, obs_per_cam=400, o_max=8, seed=0):
@@ -102,7 +103,7 @@ def main():
     # speed-of-light report: cost-analyze exactly ONE LM iteration (XLA
     # cost analysis counts a lax loop body once regardless of trip count,
     # so analyzing bundle_adjustment(iterations=N) is not per-iteration).
-    from orbslam_in_practice_tpu.optim.ba import lm_iteration
+    from orbslam_in_practice.optim.ba import lm_iteration
 
     for (W, L, F) in ((5, 600, 300), (10, 1500, 400), (20, 4000, 500)):
         prob = make_problem(W, L, F)

@@ -24,18 +24,17 @@ def main():
     ap.add_argument("--step", type=float, default=0.35)
     ap.add_argument("--noise", type=float, default=4.0)
     ap.add_argument("--jitter", type=float, default=0.15)
-    ap.add_argument("--json-out", default="/tmp/loop_diag.json")
+    ap.add_argument("--json-out", default="loop_diag.json")
     args = ap.parse_args()
 
-    import jax
+    from orbslam_in_practice.utils import runtime
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    runtime.setup()
 
     from tools.kitti_scale_probe import build
-    from orbslam_in_practice_tpu.slam.place_recognition import center as pr_center
-    from orbslam_in_practice_tpu.slam.tracking import TrackingState
-    from orbslam_in_practice_tpu.system import SlamSystem
+    from orbslam_in_practice.slam.place_recognition import center as pr_center
+    from orbslam_in_practice.slam.tracking import TrackingState
+    from orbslam_in_practice.system import SlamSystem
 
     seq, cfg = build(
         args.frames, kind="kitti_loop", step=args.step,
@@ -47,7 +46,7 @@ def main():
     smap = system.map
 
     # class-level wraps: reset() replaces tr.loop_closer mid-run
-    from orbslam_in_practice_tpu.slam.loop_closing import LoopCloser
+    from orbslam_in_practice.slam.loop_closing import LoopCloser
 
     events = []
     orig_detect = LoopCloser.detect_candidates

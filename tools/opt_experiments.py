@@ -1,4 +1,4 @@
-"""Variant experiments for extractor hot stages (run on TPU, pick winners).
+"""Variant experiments for extractor hot stages (run on the GPU, pick winners).
 
 Each variant is timed with the same chained-REPS methodology as bench.py and
 checked for numerical agreement against the current implementation.
@@ -16,11 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from orbslam_in_practice.utils import runtime
 
-from orbslam_in_practice_tpu.ops.image import _gauss_kernel7, build_pyramid, gaussian_blur7
-from orbslam_in_practice_tpu.ops.orb import (
+runtime.setup()
+
+from orbslam_in_practice.ops.image import _gauss_kernel7, build_pyramid, gaussian_blur7
+from orbslam_in_practice.ops.orb import (
     _CIRCLE31,
     _DX31,
     _DY31,
@@ -29,8 +30,8 @@ from orbslam_in_practice_tpu.ops.orb import (
     brief_descriptors,
     ic_angle,
 )
-from orbslam_in_practice_tpu.ops.orb_pattern import ORB_PATTERN
-from orbslam_in_practice_tpu.ops.fast import fast_score, nms3x3
+from orbslam_in_practice.ops.orb_pattern import ORB_PATTERN
+from orbslam_in_practice.ops.fast import fast_score, nms3x3
 
 REPS = 20
 
@@ -38,7 +39,7 @@ REPS = 20
 def timed(name, fn, *args):
     jitted = jax.jit(fn)
     out = jitted(*args)
-    float(jnp.sum(out))  # host read forces execution (BENCH_NOTES)
+    float(jnp.sum(out))  # the host read waits for the device
     best = np.inf
     for _ in range(5):
         t0 = time.perf_counter()
@@ -122,7 +123,7 @@ def make_resize_matmul(h_in, w_in, shapes):
 
 
 def ic_direct(img, yx):
-    """Direct flat gather of the 31x31 patch + moment matvec on MXU."""
+    """Direct flat gather of the 31x31 patch + moment matvec."""
     h, w = img.shape
     offs = np.mgrid[-PATCH_R : PATCH_R + 1, -PATCH_R : PATCH_R + 1].reshape(2, -1)  # (2, 961)
     wx = jnp.asarray((_DX31 * _CIRCLE31).reshape(-1))
@@ -177,7 +178,7 @@ def brief_direct(img_blur, yx, angle):
 def fast_score_rolled_old(img):
     """The PRE-MERGE rolled-window FAST score (baseline variant — fast_score
     itself is now the doubling-tree winner)."""
-    from orbslam_in_practice_tpu.ops.fast import _CIRCLE, _ARC
+    from orbslam_in_practice.ops.fast import _CIRCLE, _ARC
 
     h, w = img.shape
     neigh = jnp.stack(
@@ -240,7 +241,7 @@ def main():
     blur = jax.jit(gaussian_blur7)(img)
     timed("brief patch+take (current)", chain(lambda im: brief_descriptors(im, yx, ang).astype(jnp.float32)), blur)
     timed("brief direct-gather", chain(lambda im: brief_direct(im, yx, ang).astype(jnp.float32)), blur)
-    from orbslam_in_practice_tpu.ops.hamming import pack_bits
+    from orbslam_in_practice.ops.hamming import pack_bits
 
     a = np.asarray(jax.jit(lambda im: brief_descriptors(im, yx, ang))(blur))
     b = np.asarray(jax.jit(lambda im: pack_bits(brief_direct(im, yx, ang)))(blur))

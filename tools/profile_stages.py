@@ -1,156 +1,187 @@
-"""Per-stage on-device timing of the flagship tracking step.
+"""Per-stage device time of the fused steady-state tracking step, from a
+profiler trace.
 
-Methodology matches bench.py: chain REPS iterations inside one jitted
-program, each iteration indexing a DIFFERENT input from a stacked batch
-(prevents XLA LICM/algebraic shortcuts). Run on TPU to find the next kernel
-to optimize.
+Builds the benchmark's step (__graft_entry__._build_bench_state: 640x480,
+512 features, 1024 landmarks, 4096-slot local map), warms it up, traces
+`--steps` calls, and attributes each device operation's time to the named
+scope it was traced under (frontend/orb.py and slam/tracking.py name every
+stage: orb_pyramid, orb_L<l>_{fast_nms,select,angle,blur,brief},
+match_motion, pose_motion, match_local, pose_local). XLA names each kernel
+after its fusion; the fusion's op_name metadata in the compiled HLO carries
+the scope. A fusion that spans two scopes is charged to its root's scope.
+
+XLA:GPU runs most of the step as CUDA graphs; a kernel inside one carries
+hlo_op "command_buffer" and its own name, which is then looked up instead.
+To see the step without graphs (more launch gaps, same kernels):
+
+    XLA_FLAGS=--xla_gpu_enable_command_buffer= python tools/profile_stages.py
+
+Prints one JSON object (per-stage ms per step and share of the step's
+device time, device busy share of the traced window) and writes it, with
+the raw device-line names of the trace, to chiprun_out/profile_stages.json;
+the trace and the step's compiled HLO go to chiprun_out/stage_trace/.
+
+Usage: python tools/profile_stages.py [--steps 20]
 """
 
 from __future__ import annotations
 
-import os as _os, sys as _sys
-_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-
+import argparse
+import collections
+import glob
+import json
+import os
+import re
+import shutil
+import sys
 import time
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-from jax import lax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_run")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from orbslam_in_practice_tpu.config import SlamConfig
-from orbslam_in_practice_tpu.frontend.matcher import search_by_projection
-from orbslam_in_practice_tpu.frontend.orb import ORBExtractor
-from orbslam_in_practice_tpu.ops.fast import fast_score, nms3x3
-from orbslam_in_practice_tpu.ops.pallas_fast import fast_score_nms
-from orbslam_in_practice_tpu.ops.image import build_pyramid, gaussian_blur7
-from orbslam_in_practice_tpu.ops.orb import (
-    brief_descriptors,
-    ic_angle,
-    select_keypoints,
+SCOPE = re.compile(
+    r"(orb_pyramid|orb_L\d+_(?:fast_nms|select|angle|blur|brief)"
+    r"|match_motion|pose_motion|match_local|pose_local)"
 )
-from orbslam_in_practice_tpu.optim.pose_opt import pose_optimization
-
-REPS = 20
+INSTR = re.compile(r'^\s*(?:ROOT )?%?([\w.\-]+) = .*?op_name="([^"]*)"')
 
 
-def timed(name, fn, *args):
-    jitted = jax.jit(fn)
-    float(jitted(*args))  # compile; host read forces execution (BENCH_NOTES)
-    best = np.inf
-    for _ in range(5):
-        t0 = time.perf_counter()
-        float(jitted(*args))
-        best = min(best, (time.perf_counter() - t0) / REPS)
-    print(f"{name:38s} {best*1e3:8.3f} ms/step")
+def scope_of_ops(hlo_text: str) -> dict:
+    """HLO instruction name -> stage scope (or 'other')."""
+    out = {}
+    for line in hlo_text.splitlines():
+        m = INSTR.match(line)
+        if m:
+            s = SCOPE.search(m.group(2))
+            out[m.group(1)] = s.group(1) if s else "other"
+    return out
 
 
-def chain(stage):
-    """stage: (H, W) image -> array; iterates over a stacked (REPS, H, W) batch."""
+def _lookup(scopes: dict, stats: dict, name: str) -> str | None:
+    """Scope of one device event: from its traced name stack when the
+    profiler recorded one, else from the HLO op it ran."""
+    m = SCOPE.search(str(stats.get("name", "")))
+    if m:
+        return m.group(1)
+    op = str(stats.get("hlo_op") or name)
+    if op == "command_buffer":
+        op = name
+    for cand in (op, op.split(":")[0], re.sub(r"_(\d+)$", r".\1", op)):
+        if cand in scopes:
+            return scopes[cand]
+    return None
 
-    def run(batch):
-        def body(i, acc):
-            img = lax.dynamic_index_in_dim(batch, i, 0, keepdims=False)
-            return acc + jnp.sum(stage(img)).astype(jnp.float32)
 
-        return lax.fori_loop(0, REPS, body, jnp.float32(0))
-
-    return run
+def reduce_trace(pd, scopes: dict) -> dict:
+    """Device time per scope and the device busy share of the window, from
+    a jax.profiler.ProfileData."""
+    per_scope, unattributed, other = (collections.Counter() for _ in range(3))
+    intervals, lines_seen, samples = [], set(), {}
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        for line in plane.lines:
+            lines_seen.add(line.name)
+            if line.name in ("XLA Modules", "XLA Ops", "Steps", "Source code"):
+                continue  # derived lines repeat the stream's kernels
+            for ev in line.events:
+                stats = {k: v for k, v in ev.stats}
+                if len(samples) < 12 and ev.name not in samples:
+                    samples[ev.name] = {k: str(v)[:120] for k, v in stats.items()}
+                scope = _lookup(scopes, stats, ev.name)
+                if scope is None:
+                    scope = "unattributed"
+                    unattributed[ev.name] += ev.duration_ns
+                elif scope == "other":
+                    other[ev.name] += ev.duration_ns
+                per_scope[scope] += ev.duration_ns
+                intervals.append((ev.start_ns, ev.start_ns + ev.duration_ns))
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    window = (max(b for _, b in intervals) - min(a for a, _ in intervals)) if intervals else 0.0
+    return {
+        "per_scope_ns": dict(per_scope),
+        "busy_ns": busy,
+        "window_ns": window,
+        "device_lines": sorted(lines_seen),
+        "top_unattributed_ns": dict(unattributed.most_common(10)),
+        "top_other_ns": dict(other.most_common(10)),
+        "sample_events": samples,
+    }
 
 
 def main():
-    cfg = SlamConfig(n_features=512, n_levels=4, width=640, height=480)
-    ext = ORBExtractor(cfg.n_features, cfg.scale_factor, cfg.n_levels, cfg.ini_th_fast, cfg.min_th_fast)
-    rng = np.random.default_rng(0)
-    batch = jnp.asarray(rng.uniform(0, 255, (REPS, cfg.height, cfg.width)), jnp.float32)
-    image = batch[0]
-    print("backend:", jax.default_backend())
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--tag", default="", help="suffix of the output file name")
+    args = ap.parse_args()
 
-    def full_extract(img):
-        f = ext._extract(img)
-        return f.xy.sum() + f.desc_packed.astype(jnp.float32).sum()
+    from orbslam_in_practice.utils import runtime
 
-    timed("extractor (all levels, full)", chain(full_extract), batch)
-    timed("pyramid", chain(lambda im: sum(l.sum() for l in build_pyramid(im, cfg.n_levels, cfg.scale_factor))), batch)
+    runtime.setup()
+    import jax
 
-    budgets = ext.budgets
-    use_pallas = jax.default_backend() == "tpu"
+    # compile afresh: the persistent cache's key ignores op metadata, so a
+    # cached executable can carry the name stacks of an older build
+    jax.config.update("jax_enable_compilation_cache", False)
 
-    if use_pallas:
-        timed("fast+nms L0 (pallas)", chain(lambda im: fast_score_nms(im)), batch)
-    timed("fast+nms L0 (jnp)", chain(lambda im: nms3x3(fast_score(im))), batch)
+    from __graft_entry__ import _build_bench_state
 
-    def sel(im):
-        sc = fast_score_nms(im) if use_pallas else nms3x3(fast_score(im))
-        yx, r, v = select_keypoints(sc, budgets[0], ext.ini_th, ext.min_th)
-        return yx.astype(jnp.float32).sum() + r.sum()
+    fn, fargs, _ = _build_bench_state(1)
+    compiled = fn.lower(*fargs).compile()
+    hlo = compiled.as_text()
+    scopes = scope_of_ops(hlo)
+    for _ in range(3):
+        jax.block_until_ready(compiled(*fargs))
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        jax.block_until_ready(compiled(*fargs))
+    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    timed("fast+nms+select L0", chain(sel), batch)
+    out_dir = runtime.REPO_ROOT / "chiprun_out"
+    log_dir = out_dir / f"stage_trace{args.tag}"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    log_dir.mkdir(parents=True)
+    (log_dir / "fused_step.hlo.txt").write_text(hlo)
+    with jax.profiler.trace(str(log_dir)):
+        for _ in range(args.steps):
+            jax.block_until_ready(compiled(*fargs))
+    path = glob.glob(str(log_dir / "**" / "*.xplane.pb"), recursive=True)[0]
+    red = reduce_trace(jax.profiler.ProfileData.from_file(path), scopes)
+    total = sum(red["per_scope_ns"].values())
+    stages = {
+        k: {"ms_per_step": v / 1e6 / args.steps, "share": v / total if total else 0.0}
+        for k, v in sorted(red["per_scope_ns"].items(), key=lambda kv: -kv[1])
+    }
 
-    score0 = fast_score_nms(image) if use_pallas else nms3x3(fast_score(image))
-    yx0, _, _ = jax.jit(lambda s: select_keypoints(s, budgets[0], ext.ini_th, ext.min_th))(score0)
-    yx0 = jax.block_until_ready(yx0)
-    n_kp = yx0.shape[0]
-    print(f"(L0 budget = {n_kp} keypoints; 512-kp stage numbers scale ~linearly)")
+    def share(pattern):
+        return sum(s["share"] for k, s in stages.items() if re.fullmatch(pattern, k))
 
-    timed("ic_angle L0", chain(lambda im: ic_angle(im, yx0)), batch)
-    timed("gaussian_blur7 L0", chain(lambda im: gaussian_blur7(im)), batch)
-
-    ang0 = jax.block_until_ready(jax.jit(lambda im: ic_angle(im, yx0))(image))
-    timed("brief L0 (incl. blur)", chain(lambda im: brief_descriptors(gaussian_blur7(im), yx0, ang0).astype(jnp.float32)), batch)
-
-    # matcher + pose opt at bench shapes
-    frame = jax.block_until_ready(jax.jit(ext._extract)(image))
-    n_lm = 1024
-    K = jnp.asarray(cfg.cam.K)
-    scale_factors = jnp.asarray(np.array([cfg.scale_factor**i for i in range(cfg.n_levels)], np.float32))
-    inv_sigma2 = jnp.asarray(ext.inv_level_sigma2)
-    lm_pos_b = jnp.asarray(
-        np.stack([rng.uniform(-3, 3, (REPS, n_lm)), rng.uniform(-2, 2, (REPS, n_lm)), rng.uniform(4, 9, (REPS, n_lm))], -1),
-        jnp.float32,
-    )
-    lm_desc = jnp.asarray(rng.integers(0, 2, (n_lm, 256)).astype(np.int8) * 2 - 1)
-    lm_oct = jnp.zeros(n_lm, jnp.int32)
-    Tcw = jnp.eye(4, dtype=jnp.float32)
-    lm_valid = jnp.ones(n_lm, bool)
-
-    def match_chain(lm_batch):
-        def body(i, acc):
-            lm = lax.dynamic_index_in_dim(lm_batch, i, 0, keepdims=False)
-            m, d, _ = search_by_projection(
-                lm, lm_desc, lm_valid, lm_oct, Tcw, frame, K, jnp.asarray(8.0), scale_factors
-            )
-            return acc + jnp.sum(m).astype(jnp.float32)
-
-        return lax.fori_loop(0, REPS, body, jnp.float32(0))
-
-    timed("search_by_projection", match_chain, lm_pos_b)
-
-    lm_pos = lm_pos_b[0]
-    matches, _, _ = jax.jit(
-        lambda: search_by_projection(lm_pos, lm_desc, lm_valid, lm_oct, Tcw, frame, K, jnp.asarray(8.0), scale_factors)
-    )()
-    obs = jnp.full(frame.n_features, -1, jnp.int32)
-    obs = obs.at[jnp.maximum(matches, 0)].max(
-        jnp.where(matches >= 0, jnp.arange(n_lm, dtype=jnp.int32), -1)
-    )
-    has = obs >= 0
-    Xw_b = jnp.stack([lm_pos_b[i][jnp.maximum(obs, 0)] for i in range(REPS)])
-    inv_s2 = inv_sigma2[jnp.clip(frame.octave, 0, cfg.n_levels - 1)]
-    mask = jnp.asarray(np.asarray(has & frame.valid))
-
-    def pose_chain(Xw_batch):
-        def body(i, acc):
-            Xw = lax.dynamic_index_in_dim(Xw_batch, i, 0, keepdims=False)
-            T, inl, n = pose_optimization(Tcw, Xw, frame.xy, inv_s2, mask, K)
-            return acc + T.sum() + n.astype(jnp.float32)
-
-        return lax.fori_loop(0, REPS, body, jnp.float32(0))
-
-    timed("pose_optimization", pose_chain, Xw_b)
+    dev = jax.devices()[0]
+    result = {
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
+        "steps": args.steps,
+        "step_ms_wall_untraced": step_ms,
+        "device_ms_per_step": total / 1e6 / args.steps,
+        "device_busy_share": red["busy_ns"] / red["window_ns"] if red["window_ns"] else 0.0,
+        "share_fast_nms": share(r"orb_L\d+_fast_nms"),
+        "share_angle_blur_brief": share(r"orb_L\d+_(angle|blur|brief)"),
+        "share_extractor": share(r"orb_.*"),
+        "stages": stages,
+        "device_lines": red["device_lines"],
+        "top_unattributed_ns": red["top_unattributed_ns"],
+        "top_other_ns": red["top_other_ns"],
+        "sample_events": red["sample_events"],
+        "xla_flags": os.environ.get("XLA_FLAGS", ""),
+    }
+    print(json.dumps(result, indent=1))
+    with open(out_dir / f"profile_stages{args.tag}.json", "w") as f:
+        json.dump(result, f, indent=1)
 
 
 if __name__ == "__main__":
